@@ -7,7 +7,7 @@
 // rail with int32 accumulation and a Q12 shift. Qt isn't available in this
 // image, so this standalone program implements the same arithmetic (same
 // filter order, same fixed-point format, same per-output operation count) to
-// fix the single-core kS/s number the TPU framework is measured against.
+// fix the single-core kS/s number the framework is measured against.
 //
 // Build: g++ -O3 -march=native -o ref_cpu_bench ref_cpu_bench.cc
 // Run:   ./ref_cpu_bench [nsamples] [repeat]   (defaults 1048576, 10)

@@ -1,11 +1,11 @@
-"""sdrangel_tpu — a TPU-native software-defined-radio DSP framework.
+"""sdrangel_tpu — an accelerator-native software-defined-radio DSP framework.
 
-A from-scratch re-design of the capabilities of SDRangel (reference:
-/root/reference, v4.0.6) for TPU hardware: block-processing pure functions
-over (channel, time) arrays, compiled with jax/XLA, hot kernels in Pallas,
-scaled over a `jax.sharding.Mesh` with XLA collectives.
+A from-scratch re-design of the capabilities of SDRangel (v4.0.6) for an
+accelerator (today one NVIDIA H100, or four over NVLink): block-processing
+pure functions over (channel, time) arrays, compiled with jax/XLA, scaled
+over a `jax.sharding.Mesh` with XLA collectives.
 
-Layer map (mirrors reference SURVEY.md §1, re-architected TPU-first):
+Layer map (mirrors reference SURVEY.md §1, re-architected for the device):
   dsp/       — kernel library (decimators, NCO, fft filters, resamplers,
                discriminators, AGC, squelch, Goertzel, PLLs, designers)
   channels/  — demodulators & modulators (NFM/AM/SSB/WFM/BFM/LoRa, Tx mods)
@@ -13,7 +13,6 @@ Layer map (mirrors reference SURVEY.md §1, re-architected TPU-first):
   runtime/   — host block-pipeline engine, device sets, settings/presets
   parallel/  — mesh construction, halo exchange, sharded channel banks
   api/       — REST control plane (swagger-path-compatible subset)
-  pallas/    — hand-tuned TPU kernels for the hot ops
 """
 
 __version__ = "0.1.0"

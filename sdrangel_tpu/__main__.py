@@ -180,6 +180,9 @@ def main(argv=None) -> int:
     pt.set_defaults(fn=cmd_mod)
 
     args = p.parse_args(argv)
+    from . import compile_cache
+
+    compile_cache.configure()
     return args.fn(args)
 
 

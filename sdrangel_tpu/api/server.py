@@ -293,8 +293,8 @@ class ApiHandler(BaseHTTPRequestHandler):
                 return self._json(200, {"channelcount": len(reports),
                                         "channels": reports})
             if p == "/sdrangel/dvserial":
-                # instanceDVSerialGet: DV dongle enumeration — a TPU host has
-                # none; the stored flag mirrors setDVSerialSupport
+                # instanceDVSerialGet: DV dongle enumeration — a headless
+                # accelerator host has none; the stored flag mirrors setDVSerialSupport
                 return self._json(200, {
                     "nbDevices": 0, "dvSerialDevices": [],
                     "dvSerialSupport": int(getattr(s, "dv_serial", False)),
@@ -350,7 +350,7 @@ class ApiHandler(BaseHTTPRequestHandler):
                 )
             if p == "/sdrangel/audio":
                 # instanceAudioGet role: audio egress landscape (no sound
-                # card on a TPU host — the "devices" are the configured
+                # card on a headless accelerator host — the "devices" are the configured
                 # per-channel sinks: WAV files, UDP and RTP destinations)
                 sinks = []
                 for ds in s.device_sets:
@@ -523,7 +523,7 @@ class ApiHandler(BaseHTTPRequestHandler):
                 return self._json(200, dataclasses.asdict(target))
             if p == "/sdrangel/dvserial":
                 # instanceDVSerialPatch (?dvserial=1): store the support flag;
-                # no dongles exist on a TPU host so no scan happens
+                # no dongles exist on a headless host so no scan happens
                 s.dv_serial = self._qflag("dvserial") or bool(body.get("dvserial"))
                 return self._json(200, {
                     "message": "DV serial support "

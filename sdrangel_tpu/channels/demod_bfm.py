@@ -7,7 +7,7 @@ samples (phaselock.h:181) used to product-demod the 38 kHz subcarrier; RDS
 via demod × 2cos(3θ) at 57 kHz → RDSDemod clock recovery (rdsdemod.cpp) →
 RDSDecoder frame sync → RDSParser.
 
-TPU re-design of the pilot recovery: instead of the per-sample PLL, the pilot
+Block-parallel re-design of the pilot recovery: instead of the per-sample PLL, the pilot
 is extracted with a narrow *complex* (analytic) bandpass at 19 kHz; the unit
 phasor z/|z| IS e^{jθ}, and the 38/57 kHz references are its complex powers —
 the whole stereo/RDS downmix vectorizes with no scan. (The scan-based PLL

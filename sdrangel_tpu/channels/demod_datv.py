@@ -3,7 +3,7 @@
 Reference: plugins/channelrx/demoddatv/datvdemod.cpp configures the leansdr
 pipeline: sampler → RRC matched filter → timing/carrier recovery → QPSK
 soft symbols → deconvol (Viterbi) → deinterleave → RS → derandomize →
-TS output. The TPU part here is the MS/s section (NCO mix, RRC via the
+TS output. The device part here is the MS/s section (NCO mix, RRC via the
 overlap-add filter, Gardner timing); the bit/byte layers come from
 channels/dvbs.py on the host.
 

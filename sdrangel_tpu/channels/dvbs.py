@@ -9,7 +9,7 @@ Forney deinterleaving (I=12, M=17), RS(204,188) over GF(256) (prim poly
 
 These bit/byte layers run on the host at transport rates (like the RDS
 layer); the MS/s front end (mix, RRC matched filter, symbol timing) is the
-TPU's job. The encoder halves exist so tests close the loop without
+device's job. The encoder halves exist so tests close the loop without
 recorded captures.
 """
 

@@ -38,8 +38,7 @@ def _up_plan(audio_rate: float, channel_rate: float, block_af: int,
 
 def _mod_inc(cfg, offset_hz):
     """Carrier-NCO increment: static from cfg, or a traced per-channel
-    override (kept numpy/host when static — a closed-over device array
-    would mode-switch some TPU runtimes; see verify SKILL.md)."""
+    override."""
     if offset_hz is None:
         return jnp.asarray(nco.freq_to_increment(cfg.input_offset, cfg.channel_rate))
     return nco.freq_to_increment_traced(offset_hz, cfg.channel_rate)

@@ -7,7 +7,7 @@ rdsparser.cpp (group types; PI/PTY/TP, PS name 0A/0B, RadioText 2A/2B).
 
 Input: the complex RDS baseband the BFM channel emits at 8 samples/symbol
 (coherently downconverted from 57 kHz). At 1187.5 baud this layer costs
-microseconds in NumPy — the TPU does the MS/s part.
+microseconds in NumPy — the device does the MS/s part.
 """
 
 from __future__ import annotations

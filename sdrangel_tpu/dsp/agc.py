@@ -5,7 +5,7 @@ gain u0 = R / avg(magsq) (power mode) or R / sqrt(avg) (magnitude mode),
 optional clamping, power-threshold squelch with gate counter and step-down
 delay, attack/release as smootherstep ramps over stepLength samples.
 
-TPU decomposition (all audio-rate):
+Block-parallel decomposition (all audio-rate):
   1. magsq moving average — windowed cumsum (movingavg.py);
   2. gate/stepDownDelay counters — saturating associative scans (scanops.py);
   3. the stepUp/stepDown ramp pair — a single saturating counter whose value

@@ -7,7 +7,7 @@ fits in a half of the shrinking signal band, then reports the residual offset
 for the channel NCO; `feed` (:50-91) runs the per-sample stage cascade and
 divides by 2^stages (our float stages are unity-gain, so no renorm).
 
-TPU design: the plan is a host-side pure function → (stage modes, decimation,
+Design: the plan is a host-side pure function → (stage modes, decimation,
 residual offset). Execution maps each stage to rotate(±fs/4)+HB-decimate on
 whole blocks. For channel banks, all channels share one plan *depth*; the
 per-channel rotation signs become per-channel data so one vmapped cascade

@@ -4,9 +4,9 @@ Reference: sdrbase/dsp/decimators.h (Decimators<...>::decimateN_{cen,inf,sup},
 23-4287) chained IntHalfbandFilterEO stages (inthalfbandfiltereo.h:37-870).
 The reference runs a stateful per-sample C++ loop; here each ÷2 stage is a
 block-processing pure function `(tail, x) -> (tail', y)` where the FIR is a
-stride-2 "valid" convolution over the carried tail + current block. XLA lowers
-the conv to the TPU conv/matmul path; sdrangel_tpu.pallas.decimator provides
-the fused whole-cascade kernel for the hot path.
+stride-2 "valid" convolution over the carried tail + current block, lowered
+by XLA. The hot path runs the flat composed-filter form (decimate_flat_any)
+below, one polyphase conv for the whole cascade.
 
 Spectral placements (decimators.h decimateN_{cen,inf,sup} and
 devicesamplesource.cpp:84-110 calculateFrequencyShift):
@@ -26,7 +26,6 @@ passband gain in float32.
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple, Sequence
 
 import jax
@@ -34,24 +33,16 @@ import jax.numpy as jnp
 import numpy as np
 
 from .hbfilter import DECIMATORS_ORDER, hb_taps
-
-#: conv precision for the decimator/flat kernels. The TPU conv default is
-#: bf16 (8 mantissa bits) — BELOW the reference's int16 pipeline. "high"
-#: (bf16x3 passes, ~f32) exceeds int16 fidelity at ~13% cost over bf16
-#: (measured 1488 vs 1702 MS/s on the ÷64+channelizer+NFM16 chain);
-#: env override for A/B and for bitwise-f32 ("highest") parity runs.
-_CONV_PRECISION = {
-    "default": jax.lax.Precision.DEFAULT,
-    "high": jax.lax.Precision.HIGH,
-    "highest": jax.lax.Precision.HIGHEST,
-}[os.environ.get("SDRANGEL_TPU_CONV_PRECISION", "high")]
+from .precision import PRECISION
 
 
 def _feature_block(n_out: int, max_b: int = 128) -> int:
     """Output positions per conv window: conv output FEATURES. A strided FIR
-    with one output feature uses 1 of the MXU's 128 lanes (measured 67% of
-    the whole ÷64 chain); grouping B positions into features via a banded
-    tap matrix fills the lanes for ~(1 + s·B/L)× redundant window reads."""
+    has one output feature; grouping B positions into features through a
+    banded tap matrix makes the conv B features wide, for ~(1 + s·B/L)×
+    redundant window reads. The width 128 was tuned on an earlier
+    accelerator; its A/B against the one-feature form on the H100 is queued
+    (ROADMAP Design 3)."""
     b = max_b
     while b > 1 and n_out % b:
         b >>= 1
@@ -60,9 +51,8 @@ def _feature_block(n_out: int, max_b: int = 128) -> int:
 
 def _banded_taps(taps: jnp.ndarray, b: int, stride: int) -> jnp.ndarray:
     """(stride·B + L − stride, 1, B) HIO kernel K[stride·j + l, 0, j] = h[l]
-    — channels-last (TPU-native layout; channels-first forced a physical
-    transpose of the full-rate stream). Built with jnp ops so traced taps
-    work; constant-folds for host taps."""
+    — channels-last, so the full-rate stream needs no transpose. Built with
+    jnp ops so traced taps work; constant-folds for host taps."""
     rows = [
         jnp.pad(taps.astype(jnp.float32), (stride * j, stride * (b - 1 - j)))
         for j in range(b)
@@ -126,16 +116,15 @@ def _conv_stride2_valid(ext: jnp.ndarray, taps: jnp.ndarray) -> jnp.ndarray:
     ext: (..., T_ext) complex64; taps: (L,) float32 (symmetric, so correlation
     equals convolution). Returns (..., (T_ext - L)//2 + 1) complex64.
 
-    MXU formulation: B consecutive output positions become conv output
-    features via the banded tap matrix (see _feature_block); identical
-    arithmetic, ~B× the MXU lane utilization.
+    B consecutive output positions become conv output features via the
+    banded tap matrix (see _feature_block); identical arithmetic.
     """
     batch_shape = ext.shape[:-1]
     t_ext = ext.shape[-1]
     l_taps = taps.shape[-1]
     n_out = (t_ext - l_taps) // 2 + 1
     b = _feature_block(n_out)
-    # complex -> two real lanes folded into the batch dimension
+    # complex -> real and imaginary parts folded into the batch dimension
     lhs = jnp.stack([jnp.real(ext), jnp.imag(ext)], axis=0)
     lhs = lhs.reshape(-1, t_ext, 1)  # (2*prod(batch), T_ext, 1) NHC
     rhs = _banded_taps(taps, b, 2)  # (S, 1, B) HIO
@@ -145,7 +134,7 @@ def _conv_stride2_valid(ext: jnp.ndarray, taps: jnp.ndarray) -> jnp.ndarray:
         window_strides=(2 * b,),
         padding="VALID",
         dimension_numbers=("NHC", "HIO", "NHC"),
-        precision=_CONV_PRECISION,
+        precision=PRECISION,
     )  # (N, n_out/B, B): feature j = output position q·B + j
     out = out.reshape(out.shape[0], n_out)
     out = out.reshape(2, *batch_shape, n_out) if batch_shape else out.reshape(2, n_out)
@@ -275,15 +264,13 @@ def init_flat_state(
     )
 
 
-# -- MXU formulation of the flat conv ---------------------------------------
+# -- banded form of the flat conv -------------------------------------------
 #
-# The naive polyphase conv has r input channels and ONE output feature, so
-# the TPU lowers it to matmuls that use 1 of the MXU's 128 output lanes
-# (measured 11 ms/step for the ÷64 chain at 2^23 — 67% of the whole
-# pipeline). Grouping B consecutive output positions into conv FEATURES
-# fills the lanes: kernel K[b, j, t'] = legs[j, t'-b] (a banded tap matrix),
-# stride B windows. Same arithmetic, same outputs, ~B× the lane utilization
-# for ~(1 + B/t_leg)× redundant reads of the window overlap.
+# The naive polyphase conv has r input channels and ONE output feature.
+# Grouping B consecutive output positions into conv FEATURES gives the
+# kernel K[b, j, t'] = legs[j, t'-b] (a banded tap matrix) over stride-B
+# windows: same arithmetic, same outputs, a B-wide contraction for
+# ~(1 + B/t_leg)× redundant reads of the window overlap (see _feature_block).
 
 @functools.lru_cache(maxsize=64)
 def _banded_kernel(
@@ -305,7 +292,8 @@ def _banded_kernel(
 
 
 def _leg_conv(
-    planes: jnp.ndarray, log2_decim: int, fc_pos: str, part: str, order: int
+    planes: jnp.ndarray, log2_decim: int, fc_pos: str, part: str, order: int,
+    precision: jax.lax.Precision,
 ) -> jnp.ndarray:
     """planes: (N, w, r) f32 polyphase rows. Returns (N, w - t_leg + 1)."""
     t_leg = flat_legs(log2_decim, order).shape[1]
@@ -318,18 +306,20 @@ def _leg_conv(
         window_strides=(b,),
         padding="VALID",
         dimension_numbers=("NHC", "HIO", "NHC"),
-        precision=_CONV_PRECISION,
+        precision=precision,
     )  # (N, n_out/B, B): feature b = output position q·B + b
     return out.reshape(planes.shape[0], n_out)
 
 
 def decimate_flat(
-    state: FlatState, x: jnp.ndarray, log2_decim: int, order: int = DECIMATORS_ORDER
+    state: FlatState, x: jnp.ndarray, log2_decim: int, order: int = DECIMATORS_ORDER,
+    precision: jax.lax.Precision = PRECISION,
 ) -> tuple[FlatState, jnp.ndarray]:
     """Whole ÷2^k cen cascade as one polyphase conv; streaming-equivalent to
     decimate_cascade (within f32 rounding of the composed filter).
 
     x: (..., T) complex64, T a multiple of 2^k. Returns (state', y (..., T/2^k)).
+    `precision` defaults to the device-path policy (dsp/precision.py).
     """
     if log2_decim == 0:
         return state, x
@@ -339,7 +329,7 @@ def decimate_flat(
     lanes = jnp.stack([jnp.real(ext), jnp.imag(ext)], axis=0)
     w = ext.shape[-1] // r
     planes = lanes.reshape(-1, w, r)  # (2·prod(batch), w, 2^k) — pure reshape
-    out = _leg_conv(planes, log2_decim, "cen", "re", order)  # (N, T/2^k)
+    out = _leg_conv(planes, log2_decim, "cen", "re", order, precision)
     out = out.reshape(2, *batch_shape, out.shape[-1])
     y = (out[0] + 1j * out[1]).astype(jnp.complex64)
     return FlatState(ext[..., x.shape[-1] :]), y
@@ -389,13 +379,13 @@ def flat_rotated(
 
 def decimate_flat_any(
     state: FlatState, x: jnp.ndarray, log2_decim: int, fc_pos: str = "cen",
-    order: int = DECIMATORS_ORDER,
+    order: int = DECIMATORS_ORDER, precision: jax.lax.Precision = PRECISION,
 ) -> tuple[FlatState, jnp.ndarray]:
     """Flat composed-filter decimation for ANY placement. cen dispatches to
     the real-leg path; inf/sup modulate the input by the period-4·2^k
     pattern and correlate with complex legs (2×2 real block matmul)."""
     if log2_decim == 0 or fc_pos == "cen":
-        return decimate_flat(state, x, log2_decim, order)
+        return decimate_flat(state, x, log2_decim, order, precision)
     r = 1 << log2_decim
     legs_c, pattern = flat_rotated(log2_decim, fc_pos, order)
     t_leg = legs_c.shape[1]
@@ -412,7 +402,7 @@ def decimate_flat_any(
     planes = lanes.reshape(2, -1, w, r) if batch_shape else lanes.reshape(2, 1, w, r)
 
     def conv1(pl, part):
-        return _leg_conv(pl, log2_decim, fc_pos, part, order)
+        return _leg_conv(pl, log2_decim, fc_pos, part, order, precision)
 
     yr = conv1(planes[0], "re") - conv1(planes[1], "im")
     yi = conv1(planes[0], "im") + conv1(planes[1], "re")
@@ -448,9 +438,9 @@ def decimate_flat_iq(
     of this layout to (W, 2^k·2) with channel index c = 2j + iq, so the
     whole cascade is ONE NWC conv whose kernel routes even channels (I
     legs) to output channel 0 and odd channels (Q legs) to channel 1.
-    The complex-lane variant (decimate_flat) stacks real/imag into planar
-    lanes — two hidden ~8 B/sample transposes of the full-rate stream;
-    this form reads the input in storage order.
+    The complex variant (decimate_flat) stacks real/imag into planar
+    arrays — two ~8 B/sample transposes of the full-rate stream; this form
+    reads the input in storage order.
 
     Returns (state', y_iq (..., T/2^k, 2) float32).
     """
@@ -472,7 +462,7 @@ def decimate_flat_iq(
         window_strides=(1,),
         padding="VALID",
         dimension_numbers=("NWC", "WIO", "NWC"),
-        precision=_CONV_PRECISION,  # same fidelity policy as every other conv
+        precision=PRECISION,
     )  # (N, T/2^k, 2)
     y = out.reshape(*batch_shape, out.shape[-2], 2)
     return FlatIqState(ext[..., x_iq.shape[-2] :, :]), y

@@ -1,4 +1,4 @@
-"""FFT fast-convolution channel filters (overlap-add), batched for TPU.
+"""FFT fast-convolution channel filters (overlap-add), batched.
 
 Reference: sdrbase/dsp/fftfilt.{h,cpp} (from fldigi) — accumulates flen/2
 samples, FFTs [chunk | zeros], multiplies by the frequency-domain filter,
@@ -8,7 +8,7 @@ runDSB :328; runAsym :361). Filter builders: windowed-sinc bandpass
 (create_filter :108), DSB lowpass (:149), asymmetric/vestigial (:193),
 RRC (:223).
 
-TPU design: a block of T samples is reshaped to (T/hop, hop) frames and the
+Design: a block of T samples is reshaped to (T/hop, hop) frames and the
 whole overlap-add pipeline runs as batched jnp.fft over the frame axis —
 embarrassingly parallel across frames and channels; the sequential overlap
 add between consecutive frames is a shift of the frame axis, and only one

@@ -4,7 +4,7 @@ Reference: sdrbase/dsp/ctcssdetector.cpp — per-sample feedback
 u0 = in + coef*u0 - u1 over N-sample frames, then per-tone power
 u0² + u1² − coef·u0·u1, which equals |Σ_n x[n] e^{-jωn}|². We compute that
 power directly as two matmuls against cos/sin bases over framed input — the
-32-tone bank becomes an (N × 2J) MXU contraction per frame.
+32-tone bank becomes an (N × 2J) contraction per frame.
 sdrbase/dsp/afsquelch.cpp is the same recurrence over 2 test tones with
 per-frame moving average and attack/decay counting.
 """
@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
+
+from .precision import PRECISION
 
 # The 32 EIA standard CTCSS tones (ctcssdetector.cpp:29-61).
 CTCSS_TONES = np.array(
@@ -48,8 +50,10 @@ def goertzel_power(x_frames: jnp.ndarray, tones, fs: float) -> jnp.ndarray:
     """
     n = x_frames.shape[-1]
     cos_b, sin_b = _basis(tuple(np.asarray(tones, dtype=np.float64).tolist()), fs, n)
-    c = jnp.einsum("...fn,nj->...fj", x_frames, jnp.asarray(cos_b))
-    s = jnp.einsum("...fn,nj->...fj", x_frames, jnp.asarray(sin_b))
+    c = jnp.einsum("...fn,nj->...fj", x_frames, jnp.asarray(cos_b),
+                   precision=PRECISION)
+    s = jnp.einsum("...fn,nj->...fj", x_frames, jnp.asarray(sin_b),
+                   precision=PRECISION)
     return (c * c + s * s).astype(jnp.float32)
 
 

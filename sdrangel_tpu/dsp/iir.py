@@ -14,6 +14,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .precision import PRECISION
+
 
 class Iir1State(NamedTuple):
     y1: jnp.ndarray  # (...,) previous output
@@ -67,11 +69,12 @@ def biquad(
     def compose(f, g):
         mf, vf = f
         mg, vg = g
-        return mg @ mf, mg @ vf + vg
+        return (jnp.matmul(mg, mf, precision=PRECISION),
+                jnp.matmul(mg, vf, precision=PRECISION) + vg)
 
     mm, vv = jax.lax.associative_scan(compose, (mats, vecs), axis=-3)
     s0 = state.s[..., None, :, None]  # (...,1,2,1)
-    ys = (mm @ s0 + vv)[..., 0, 0]  # y[t]
+    ys = (jnp.matmul(mm, s0, precision=PRECISION) + vv)[..., 0, 0]  # y[t]
     new_s = jnp.stack([ys[..., -1], ys[..., -2]], axis=-1)
     return BiquadState(new_s), ys.astype(jnp.float32)
 

@@ -20,6 +20,7 @@ import numpy as np
 from .channelizer import ChannelPlan
 from .decimators import CascadeState, _rotation_pattern
 from .hbfilter import UPCHANNELIZER_ORDER, hb_taps
+from .precision import PRECISION
 
 
 def hb_interpolate2(
@@ -40,6 +41,7 @@ def hb_interpolate2(
         padding=((0, 0),),  # explicit VALID (string padding rejected with lhs_dilation)
         lhs_dilation=(2,),
         dimension_numbers=("NCH", "OIH", "NCH"),
+        precision=PRECISION,
     )
     out = out[..., -2 * x.shape[-1] :]
     out = out.reshape(2, *batch_shape, 2 * x.shape[-1])
@@ -122,8 +124,8 @@ def interpolate_cascade(
 ) -> tuple[CascadeState, jnp.ndarray]:
     """Device-side ×2^k interpolation to the DAC rate (interpolators.h
     cascades; reference uses shrinking orders 64/32/16 up the chain — one
-    order-64 design everywhere is strictly better filtering at equal cost
-    on TPU since the conv is batched)."""
+    order-64 design everywhere is strictly better filtering, and the
+    batched conv runs every stage as one op)."""
     taps = jnp.asarray(hb_taps(order))
     tails = list(state.tails)
     y = x

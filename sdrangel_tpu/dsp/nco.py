@@ -4,10 +4,10 @@ Reference: sdrbase/dsp/nco.{h,cpp} — 4096-entry cosine LUT, integer phase
 accumulator, nextIQ() returning (cos φ, sin φ) = e^{+iφ} (nco.cpp:60-64:
 imag = -cos(φ + T/4) = sin φ); NCOF float-phase variant (ncof.cpp).
 
-TPU design: the per-sample accumulator becomes a closed-form phase ramp per
+Design: the per-sample accumulator becomes a closed-form phase ramp per
 block with an integer carry. Default ("float") mode uses a 32-bit phase wheel
 (increment = round(f/fs * 2^32), wrap = native uint32 overflow) and computes
-exp via sin/cos on the VPU. "lut" parity mode reproduces the reference's
+exp via sin/cos. "lut" parity mode reproduces the reference's
 truncated 12-bit table lookup and integer increment (nco.cpp:48-52) exactly.
 """
 
@@ -62,7 +62,7 @@ def freq_to_increment_traced(freq, sample_rate) -> jnp.ndarray:
     return (turns * jnp.float32(1 << _WHEEL_BITS)).astype(jnp.uint32)
 
 
-_CHUNK = 128  # outer-product factor width (one TPU lane tile)
+_CHUNK = 128  # outer-product factor width (A/B on the H100: ROADMAP Design 3)
 
 
 def _phasor(phase_u32: jnp.ndarray) -> jnp.ndarray:

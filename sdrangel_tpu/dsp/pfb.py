@@ -5,20 +5,16 @@ The reference selects each channel with its own binary tree of half-band
 stages (sdrbase/dsp/downchannelizer.cpp:250-287), costing O(stages) filter
 passes PER CHANNEL. For a bank of channels on the uniform grid c·fs/M this
 analysis bank computes ALL M channels in one pass: a P-taps-per-branch
-polyphase contraction (one (F, P·M)×(P·M → M) tap reduction — MXU work)
-followed by a length-M FFT across branches (XLA batched FFT). SURVEY §7.1
-names exactly this design ("one polyphase/FFT channelizer kernel") for the
-64-channel configuration.
+polyphase contraction (one (F, P·M)×(P·M → M) tap reduction) followed by
+a length-M FFT across branches (XLA batched FFT). SURVEY §7.1 names exactly
+this design ("one polyphase/FFT channelizer kernel") for the 64-channel
+configuration.
 
-Measured on hardware (r2/r3): at M=64 the bank runs 45 GS/s of baseband
-in one pass, while the equivalent 64-path HB-tree bank produces an HLO
-too large to compile (64 paths × depth-6 stages unroll to hundreds of
-convs). At 16 channels on a 4-leaf grid the r2 comparison had the tree
-winning (224 vs 178 GS/s end-to-end) — r3 traced that entirely to XLA's
-FFT custom call on the tiny M=4 branch axis; with explicit butterflies
-for M≤4 (_dft_branches) the PFB chain measures 301 vs the tree's 234
-(bench.py -t chainpfb vs chain, 2^24). The tree remains for irregular
-(non-uniform-grid) banks; the PFB is the uniform-grid gear at every M.
+At M=64 the equivalent 64-path HB-tree bank produces an HLO too large to
+compile (64 paths × depth-6 stages unroll to hundreds of convs), so the
+PFB is the uniform-grid gear at every M; the tree remains for irregular
+(non-uniform-grid) banks. For M≤4 the DFT across branches is explicit
+butterflies (_dft_branches).
 
 Math (critically sampled analysis, output rate fs/M per channel; frame-end
 alignment):
@@ -41,6 +37,8 @@ from typing import NamedTuple
 import jax.numpy as jnp
 import numpy as np
 
+from .precision import PRECISION
+
 
 @functools.lru_cache(maxsize=32)
 def prototype(m: int, taps_per_branch: int = 12, beta: float = 9.0,
@@ -55,8 +53,7 @@ def prototype(m: int, taps_per_branch: int = 12, beta: float = 9.0,
     At the default 12 taps/branch this design gives ≤0.25 dB droop at
     ±0.35·fs/M and ≤−85 dB adjacent-band max — strictly better than the
     tree. (8 taps/branch, the r2 default, was −37 dB adjacent / −0.96 dB
-    droop — flipping the PFB gear on silently DEGRADED channel filtering;
-    VERDICT r2 weak #4.)"""
+    droop — flipping the PFB gear on silently DEGRADED channel filtering.)"""
     n = m * taps_per_branch
     t = np.arange(n) - (n - 1) / 2.0
     fc = 0.5 / m * cutoff_scale
@@ -95,10 +92,8 @@ def analyze(state: PfbState, x: jnp.ndarray, m: int,
     h2 = np.ascontiguousarray(np.reshape(h, (p, m))[::-1, ::-1])
     # polyphase contraction v[n, k] = Σ_q h2[q, k] · frames[n+q, k] — the
     # contraction is DIAGONAL in the branch k, so it is P slice-multiply-
-    # adds, not a matmul. r2 formed explicit (F, P, M) windows by advanced
-    # indexing; that gather cost ~130 s of TPU compile alone (bisected via
-    # tools/chain64_ladder.py) for identical arithmetic. The slice form
-    # compiles in seconds and fuses into one memory-bound kernel.
+    # adds, not a matmul: slices, no gather, so XLA fuses it into one
+    # memory-bound kernel.
     v = None
     for q in range(p):
         term = frames[..., q:q + f, :] * jnp.asarray(h2[q], jnp.float32)
@@ -110,9 +105,9 @@ def analyze(state: PfbState, x: jnp.ndarray, m: int,
 
 
 def _dft_branches(v: jnp.ndarray, m: int) -> jnp.ndarray:
-    """DFT across the branch (last) axis. m=2/4 use explicit butterflies —
-    XLA's FFT custom call on a tiny minor axis with a huge batch costs more
-    than the three adds it replaces (bench -t chainpfb: the M=4 grid)."""
+    """DFT across the branch (last) axis. m=2/4 use explicit butterflies in
+    place of an FFT call on a tiny minor axis with a huge batch (tuned on an
+    earlier accelerator; the A/B on the H100 is ROADMAP Design 3)."""
     if m == 2:
         return jnp.stack([v[..., 0] + v[..., 1], v[..., 0] - v[..., 1]], axis=-1)
     if m == 4:
@@ -150,7 +145,7 @@ def analyze_select(state: PfbState, x: jnp.ndarray, m: int, sel,
 
     When only C << M channels are wanted, the length-M FFT across branches
     (which materializes all M channels — (F, M) complex in HBM) is replaced
-    by one (F, M) x (M, C) partial-DFT matmul on the MXU, writing only the
+    by one (F, M) x (M, C) partial-DFT matmul, writing only the
     wanted (F, C). For the chain64 flagship (C=64 of M=256) this removes
     three quarters of the channelizer's output traffic.
     """
@@ -172,16 +167,13 @@ def analyze_select(state: PfbState, x: jnp.ndarray, m: int, sel,
     # DFT row for channel c, including the per-channel twiddle tw_c
     w = np.exp(-2j * np.pi * np.outer(k, sel) / m) * np.exp(
         -2j * np.pi * sel / m)[None, :]
-    # complex matmul composed as ONE real f32 matmul (a complex einsum
-    # lowered ~2x slower on TPU, measured via bench -t chain64):
+    # complex matmul composed as ONE real f32 matmul:
     # [vr vi] (F, 2M) @ [[Wr Wi], [-Wi Wr]] (2M, 2C) -> [yr yi]
     wr, wi = w.real.astype(np.float32), w.imag.astype(np.float32)
     w2 = np.block([[wr, wi], [-wi, wr]])
-    from .decimators import _CONV_PRECISION
-
     xr = jnp.concatenate([jnp.real(v), jnp.imag(v)], axis=-1)  # (..., F, 2M)
     y2 = jnp.einsum("...fk,kc->...fc", xr, jnp.asarray(w2),
-                    precision=_CONV_PRECISION)  # (..., F, 2C)
+                    precision=PRECISION)  # (..., F, 2C)
     c = len(sel)
     y = (y2[..., :c] + 1j * y2[..., c:]).astype(jnp.complex64)
     return PfbState(ext[..., t:]), y

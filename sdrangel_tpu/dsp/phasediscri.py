@@ -33,7 +33,7 @@ _PIBY2_F = np.float32(1.5707963)    # PIBY2_FLOAT (phasediscri.h:170)
 def atan2_approx2(y: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     """The reference's atan2_approximation2 (phasediscri.h:172-197),
     vectorized: |error| < 0.005 rad. Test-only parity mode — the shipping
-    discriminators use exact atan2 (free on the VPU); this exists to
+    discriminators use exact atan2 (cheap on the device); this exists to
     DEMONSTRATE that the WFM/NFM golden residuals are the reference's own
     approximation error (VERDICT r4 next #3)."""
     y = y.astype(jnp.float32)
@@ -65,7 +65,7 @@ def discriminator_delta(
 
     x: (..., T) complex64. Returns (state', demod, magsq) both (..., T) f32.
     Uses the exact atan2 (the reference's atan2_approximation2 is a speed
-    hack for scalar CPUs; the VPU computes real atan2 at full rate).
+    hack for scalar CPUs; the device computes real atan2 at full rate).
     approx=True (static) switches to the reference's atan2_approximation2
     — the test-only parity mode demonstrating the golden residual budgets.
     """

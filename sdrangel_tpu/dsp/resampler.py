@@ -6,14 +6,14 @@ Hamming window 0.54-0.46cos, ntaps rounded even then ×phases, normalized by
 DC gain) and resamples with a fractional `distance` accumulator selecting the
 phase leg `floor(distance * phaseSteps)` per output (interpolator.h:23-52).
 
-TPU design: the in/out ratio is rational p/q, so for block length T ≡ 0
+Design: the in/out ratio is rational p/q, so for block length T ≡ 0
 (mod p) the per-output input index and phase leg repeat exactly every q
 outputs and every block. The reference's per-sample phase schedule (both
 the decimate and interpolate recurrences) is recast as ONE static
 multi-output-channel strided conv / windows@legs matmul — residue class j
 of the output grid becomes channel j whose kernel is phase leg phase[j]
 placed at offset start_idx[j] (_polyphase_conv_kernels); no gathers, no
-data-dependent shapes (both compile pathologically on TPU).
+data-dependent shapes.
 Carried state is the ntaps-1 input tail (the distance pattern is
 block-periodic by construction, so no phase carry is needed).
 """
@@ -27,6 +27,8 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
+
+from .precision import PRECISION
 
 
 def create_polyphase_lowpass(
@@ -152,9 +154,8 @@ def make_plan(
         # can absorb, capping the WFM chain golden at 29.7 dB. The exact
         # schedule measures 135.8 dB on the same stage (see
         # test_wfm_resampler_stage_matches_reference).
-        # Executed through the windows+einsum machinery: a direct lax.conv
-        # with a ≥64-tap kernel compiles pathologically on TPU (the 72-tap
-        # conv hung a 590 s compile; see .claude/skills/verify/SKILL.md).
+        # Executed through the windows+einsum machinery (see
+        # _resample_polyphase_conv), like every other schedule.
         legs16 = create_polyphase_lowpass(
             phase_steps, 1.0, phase_steps * in_rate, cutoff, nb_taps_per_phase
         )
@@ -273,14 +274,14 @@ def _polyphase_conv_kernels(plan: ResamplerPlan) -> np.ndarray:
 def _resample_polyphase_conv(
     state: ResamplerState, x: jnp.ndarray, plan: ResamplerPlan
 ) -> tuple[ResamplerState, jnp.ndarray]:
-    """Gather-mode schedule as ONE matmul on the MXU.
+    """Gather-mode schedule as ONE matmul.
 
     Output q·m'+j is dot(K_j, ext[m'·p : m'·p + L]) with K_j the phase leg
-    embedded at start_idx[j] (period-p/q schedule). Formulated as a strided
-    conv (stride p, L-wide kernels) XLA's TPU compile blows up for large p
-    (the 625/384-type rates took tens of minutes); the identical computation
-    as window extraction by reshape + `windows (m', L) @ K.T (L, q)` compiles
-    in seconds and runs on the MXU.
+    embedded at start_idx[j] (period-p/q schedule), computed as window
+    extraction by reshape + `windows (m', L) @ K.T (L, q)`. (The equivalent
+    strided conv, stride p with L-wide kernels, compiled for tens of
+    minutes at large p on an earlier accelerator; the A/B on the H100 is
+    ROADMAP Design 3.)
     """
     rhs_np = plan.residue_kernels  # (q, 1, L)
     q_ = rhs_np.shape[0]
@@ -302,10 +303,8 @@ def _resample_polyphase_conv(
         for s in range(r)
     ]
     windows = jnp.concatenate(chunks, axis=-1)[..., :l_full]  # (2, ..., m', L)
-    from .decimators import _CONV_PRECISION
-
     out = jnp.einsum("...ml,ql->...mq", windows, k_mat,
-                     precision=_CONV_PRECISION)  # (2, ..., m', q)
+                     precision=PRECISION)  # (2, ..., m', q)
     out = out.reshape(2, *batch_shape, plan.block_out)
     y = (out[0] + 1j * out[1]).astype(jnp.complex64)
     return ResamplerState(ext[..., plan.block_in :]), y

@@ -1,18 +1,15 @@
 """Parallel formulations of the reference's per-sample sequential recurrences.
 
 The reference walks samples one by one (squelch gate counters, AGC ramps —
-nfmdemod.cpp:178-240, agc.cpp:98-175). On TPU a per-sample loop would leave
-the VPU idle; these helpers re-express the recurrences as log-depth
-associative scans.
+nfmdemod.cpp:178-240, agc.cpp:98-175). On a parallel device a per-sample
+loop would leave it idle; these helpers re-express the recurrences as
+log-depth associative scans.
 
-Execution shape (r3): every associative_scan here runs as a TWO-LEVEL scan
-over (chunks, K) with the scanned axis moved to a MAJOR position. A single
-associative_scan along the minor (lane) axis slices lanes at stride 2 per
-level — embedded in a large program the TPU backend took 60+ s of compile
-for the chain64 step and ~50 us/step more at runtime (bisected:
-tools/micro_scan.py — the scan ALONE compiles in 1-3 s;
-tools/micro_squelch_compile.py — in-context minor/major/barrier variants
-all compile 63-73 s, the two-level form 5.3 s and runs 66 us vs 110-130).
+Execution shape: every associative_scan here runs as a TWO-LEVEL scan over
+(chunks, K) with the scanned axis moved to a MAJOR position. This was a
+compile-time workaround on an earlier accelerator (a single minor-axis scan
+inside a large program compiled for a minute); its A/B against the plain
+scan on the H100 is queued (ROADMAP Design 3).
 """
 
 from __future__ import annotations
@@ -24,7 +21,7 @@ import jax.numpy as jnp
 def _two_level_scan(compose, elems, identity):
     """Inclusive associative scan of a tuple of (..., T) arrays along the
     last axis, executed as chunk-level + cross-chunk scans with every
-    lax.associative_scan running on a major (non-lane) axis.
+    lax.associative_scan running on a major (non-minor) axis.
 
     identity: tuple of scalars such that compose(identity, g) == g,
     compose(f, identity) == f, and applying identity leaves the carry
@@ -34,15 +31,13 @@ def _two_level_scan(compose, elems, identity):
     t = elems[0].shape[-1]
     b = elems[0].shape[:-1]
     if t < 1024:
-        # short blocks: one scan, moved off the lane axis (cheap at these
-        # lengths; the compile bomb needs both depth and width)
+        # short blocks: one scan, moved off the minor axis
         em = tuple(jnp.moveaxis(e, -1, 0) for e in elems)
         out = jax.lax.associative_scan(compose, em, axis=0)
         return tuple(jnp.moveaxis(o, 0, -1) for o in out)
     # pad to a multiple of the chunk with identity elements so EVERY large
-    # block takes the two-level path (a single full-length scan is the
-    # 60 s compile bomb this module exists to avoid — review finding r3:
-    # a block whose 2-adic factor is small must not fall back to it)
+    # block takes the two-level path (a block whose 2-adic factor is
+    # small must not fall back to a single full-length scan)
     k = 512
     pad = (-t) % k
     if pad:
@@ -87,7 +82,7 @@ def saturating_counter(
 
     The map x -> clamp(x + a, l, h) is closed under composition, so the whole
     recurrence is an associative scan over (a, l, h) triples — log-depth on
-    the VPU instead of a length-T serial loop.
+    the device instead of a length-T serial loop.
 
     deltas: (..., T); init: (...,) counter entering the block.
     Returns (..., T) float32 counter series (after each step).

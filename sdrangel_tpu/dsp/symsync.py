@@ -1,7 +1,7 @@
 """Symbol timing synchronizer (Gardner) — the liquid-dsp symsync role.
 
 Reference: sdrbase/dsp/symsync.{h,cpp} wraps liquid-dsp's polyphase symbol
-synchronizer for PSK-style streams (used by DATV). TPU form: the stream is
+synchronizer for PSK-style streams (used by DATV). Block form: the stream is
 oversampled at `sps` samples/symbol; a block-level Gardner detector measures
 the average timing error over all symbols of the block (one reduction, no
 per-symbol loop), a small loop filter carried across blocks converges the

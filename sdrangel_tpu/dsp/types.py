@@ -4,9 +4,9 @@ The reference (sdrbase/dsp/dsptypes.h:25-97) uses fixed-point I/Q samples
 (qint16, or qint24 when RX_SAMPLE_24BIT) with scale constants
 SDR_RX_SCALEF = 32768.0 (or 8388608.0 in 24-bit mode).
 
-TPU-native policy: ingestion accepts int8/int16/int24/float raw streams and
-normalizes to float32 in [-1, 1); all DSP compute is float32/complex64
-(the VPU/MXU native width); audio egress is int16. A fixed-point "parity
+Policy: ingestion accepts int8/int16/int24/float raw streams and
+normalizes to float32 in [-1, 1); all DSP compute is float32/complex64;
+audio egress is int16. A fixed-point "parity
 mode" is provided by the integer NCO LUT and by reproducing the reference
 decimation scale policy as pure gains.
 """

@@ -2,12 +2,13 @@
 
 The reference distributes raw I/Q between machines with the SDRdaemon
 UDP+FEC data plane (plugins/samplesource/sdrdaemonsource/
-sdrdaemonsourcebuffer.h:27-85). On a TPU pod the equivalent is each host
-memory-mapping its slice of the recording and materialising ONLY the
+sdrdaemonsourcebuffer.h:27-85). On a multi-host mesh the equivalent is each
+host memory-mapping its slice of the recording and materialising ONLY the
 addressable shards of a globally time-sharded `jax.Array`
-(`jax.make_array_from_callback`): no sample crosses DCN — the array is
-assembled shard-by-shard on the hosts that own the devices, and the halo
-exchange afterwards rides ICI inside the mesh (parallel/sharded.py).
+(`jax.make_array_from_callback`): no sample crosses between hosts — the
+array is assembled shard-by-shard on the hosts that own the devices, and
+the halo exchange afterwards rides the device interconnect inside the mesh
+(parallel/sharded.py).
 
 Works identically on one host with N local devices (each shard is a
 different slice of the same mmap) and on multi-host meshes under

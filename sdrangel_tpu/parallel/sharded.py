@@ -1,7 +1,7 @@
 """Mesh-sharded pipeline: time-sharded decimation with halo exchange +
 channel-sharded demod bank.
 
-This is the TPU-native replacement for the reference's two concurrency axes
+This is the mesh replacement for the reference's two concurrency axes
 (SURVEY.md §2.6): per-channel threads (threadedbasebandsamplesink.h) become
 the mesh "channel" axis; the unbounded sample stream (filter-state streaming,
 SURVEY §5 long-context analog) is sharded over the mesh "time" axis with the
@@ -31,27 +31,25 @@ import logging
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax._src.lax.parallel import all_gather_invariant as _all_gather_inv
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..channels.registry import REGISTRY
 from ..dsp import channelizer as chan
 from ..dsp import decimators as dec
 from ..dsp import pfb as pfbmod
+from ..dsp.precision import PRECISION
 from ..dsp.hbfilter import DECIMATORS_ORDER
 
 NFM_URI = "sdrangel.channel.nfmdemod"
 
 _log = logging.getLogger(__name__)
 
-# Varying -> Invariant all_gather: the gathered result is identical on every
-# shard of the gathered axis and the VMA system KNOWS it, which is what lets
-# check_vma=True verify the all_gather gear's replicated per-channel outputs
-# (VERDICT r3 weak #4). Exported publicly as jax.lax.all_gather_invariant in
-# later JAX releases; at 0.9.0 it lives in the parallel module.
-try:
-    from jax.lax import all_gather_invariant as _all_gather_inv
-except ImportError:  # pragma: no cover - version-dependent import path
-    from jax._src.lax.parallel import all_gather_invariant as _all_gather_inv
+# _all_gather_inv is the Varying -> Invariant all_gather: the gathered result
+# is identical on every shard of the gathered axis and the VMA system KNOWS
+# it, which is what lets check_vma=True verify the all_gather gear's
+# replicated per-channel outputs. JAX 0.9.0 keeps it in the private
+# parallel module.
 
 
 def make_mesh(n_time: int, n_channel: int, devices=None) -> Mesh:
@@ -79,10 +77,8 @@ def halo_samples(log2_decim: int, order: int = DECIMATORS_ORDER) -> int:
 def _cascade_with_halo(x_ext: jnp.ndarray, log2: int, fc_pos: str, halo: int) -> jnp.ndarray:
     """Streaming cascade over the local shard with the halo INJECTED as the
     carried tail (the flat history r·(t_leg−1) ≤ halo): the conv runs on
-    the bare power-of-two local length. Running it over the halo-extended
-    [halo | local] instead compiled PATHOLOGICALLY on TPU (~170 s for the
-    2^25+4352-sample shape vs ~18 s at exactly 2^25 — the r1 non-pow2 conv
-    finding again, measured on the chainsharded bench gear r4).
+    the bare power-of-two local length, the shape the single-device gear
+    compiles, instead of the halo-extended [halo | local] shape.
 
     Cross-shard phase correctness of the inf/sup rotation patterns requires
     the local shard length to be a multiple of 4·2^k (the halo is aligned
@@ -148,7 +144,7 @@ class ShardedPipelineConfig:
     #: sliced over the channel axis — the analysis is computed exactly once
     #: across the mesh) and ONE lax.all_to_all over BOTH axes trades frames
     #: for channels — device d receives all frames of grid channels
-    #: [d·M/D, (d+1)·M/D), D = n_time·n_channel. ICI traffic drops
+    #: [d·M/D, (d+1)·M/D), D = n_time·n_channel. Inter-device traffic drops
     #: n_time·n_channel-fold vs the all_gather. Banks may be heterogeneous
     #: (counts divisible by D); each demod's grid channel must live in its
     #: device's chunk (the session places channels grid-sorted and passes
@@ -274,8 +270,7 @@ def grid_split(cfg: ShardedPipelineConfig, offsets: np.ndarray):
 def _pfb_with_halo(bb_ext: jnp.ndarray, m: int, p: int) -> jnp.ndarray:
     """Streaming PFB analysis over the local frame chunk with the (P-1)·M
     halo INJECTED as the carried tail — the analysis runs on the bare
-    chunk length (running it over the halo-extended input costs TPU
-    compile time at awkward shapes; see _cascade_with_halo)."""
+    chunk length (see _cascade_with_halo)."""
     ph = (p - 1) * m
     state = pfbmod.PfbState(bb_ext[..., :ph])
     _, y = pfbmod.analyze(state, bb_ext[..., ph:], m, pfbmod.prototype(m, p))
@@ -382,8 +377,7 @@ def build_a2a_step(cfg: ShardedPipelineConfig, mesh: Mesh):
         else:
             bb_local, new_casc = xc, casc_carry
 
-        # baseband spectrum tap (r5 — the VERDICT r4 hole: the flagship
-        # gear dropped the SpectrumVis role). The display frame grid
+        # baseband spectrum tap (the SpectrumVis role). The display frame grid
         # aligns with the time shards (validated at build), so the
         # single-device tap's "last frame of the block" is exactly the
         # last local frame of the LAST time shard — select it with a psum
@@ -424,17 +418,15 @@ def build_a2a_step(cfg: ShardedPipelineConfig, mesh: Mesh):
             if local_idx is None:  # identity: demod i of chunk = channel i
                 xb = jnp.moveaxis(mine, -1, 0)  # (sz, F_total)
             else:
-                # one-hot matmul instead of jnp.take: traced advanced-
-                # indexing gathers cost minutes of TPU compile (the r3
-                # PFB-window finding, verify SKILL.md) — measured 168 s
-                # for this step's compile with the gather, seconds as a
-                # (C, sz) @ (F, sz)^T product. Full precision: the TPU
-                # bf16 matmul default would quantize the demod inputs
-                # (the decimators.py precision-policy rule)
+                # one-hot (C, sz) @ (F, sz)^T product instead of
+                # jnp.take: a compile workaround from an earlier
+                # accelerator, A/B on the H100 queued (ROADMAP Design 3).
+                # At the policy precision it copies the selected inputs
+                # exactly.
                 oh = (local_idx[g][:, None]
                       == jnp.arange(mine.shape[-1])).astype(mine.dtype)
                 xb = jnp.einsum("cs,fs->cf", oh, mine,
-                                precision=dec._CONV_PRECISION)
+                                precision=PRECISION)
             dstate, audio = kind.process(dstate, xb, gcfg,
                                          offset_hz=residuals[g])
             new_states.append((cstate, dstate))
@@ -467,8 +459,8 @@ def build_a2a_step(cfg: ShardedPipelineConfig, mesh: Mesh):
                 out_specs=out_specs,
                 # the a2a gear splits everything over both axes; only the
                 # host-fed carries are replicated (psum-built, so the VMA
-                # checker can verify them) — keep the static check ON here
-                # (VERDICT r2 weak #6); the all_gather gear below still
+                # checker can verify them) — keep the static check ON here;
+                # the all_gather gear below still
                 # needs check_vma=False for its replicated outputs.
                 check_vma=True,
             )
@@ -635,13 +627,12 @@ def build_sharded_step(cfg: ShardedPipelineConfig, mesh: Mesh):
             cg = counts[g] // split  # local channels of this group
             if cfg.pfb_m:
                 # (F, M) -> (cg, F) via traced grid indices: live offset
-                # moves re-select without recompiling. One-hot matmul, NOT
-                # jnp.take — traced gathers are a minutes-long TPU compile
-                # (r3 finding; measured 168 s vs seconds on this step)
+                # moves re-select without recompiling. One-hot matmul in
+                # place of jnp.take, as above.
                 oh = (pfb_idx[g][:, None]
                       == jnp.arange(ych.shape[-1])).astype(ych.dtype)
                 xb = jnp.einsum("cm,fm->cf", oh, ych,
-                                precision=dec._CONV_PRECISION)
+                                precision=PRECISION)
             else:
                 xb = jnp.broadcast_to(bb, (cg, bb.shape[-1]))
                 if cfg.chan_stages:
@@ -678,9 +669,7 @@ def build_sharded_step(cfg: ShardedPipelineConfig, mesh: Mesh):
             out_specs=out_specs,
             # with channel_split == n_channel the per-channel outputs are
             # replicated over 'time'; the all_gather/psum collectives carry
-            # that through the VMA inference, so the static check stays ON
-            # (VERDICT r3 weak #4 — the r2-era "can't prove it" predates
-            # proper collective vma rules).
+            # that through the VMA inference, so the static check stays ON.
             check_vma=True,
         )
     )

@@ -1,5 +1,5 @@
 """DATV end-to-end: TS packets -> DVB-S encode -> QPSK waveform at 4 sps ->
-TPU front end (mix, RRC, symbol sync) -> host FEC chain -> TS packets."""
+device front end (mix, RRC, symbol sync) -> host FEC chain -> TS packets."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -132,80 +132,80 @@ def test_vmap_over_channels():
         )
 
 
-def test_flat_cascade_matches_staged():
+@pytest.mark.parametrize("log2", [1, 3, 6])
+def test_flat_cascade_matches_staged(log2):
     """decimate_flat (single composed-filter conv) streams identically to
     the staged cascade across block seams, for several ÷2^k."""
     from sdrangel_tpu.dsp import decimators as dec
 
-    rng = np.random.default_rng(11)
-    for log2 in (1, 3, 6):
-        n = 4 << max(10, log2 + 6)
-        x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64) * 0.3
-        cs = dec.init_state(log2)
-        fs_ = dec.init_flat_state(log2)
-        block = n // 4
-        ys, yf = [], []
-        for b in range(4):
-            xb = jnp.asarray(x[b * block : (b + 1) * block])
-            cs, a = dec.decimate_cascade(cs, xb, log2, "cen")
-            fs_, c = dec.decimate_flat(fs_, xb, log2)
-            ys.append(np.asarray(a))
-            yf.append(np.asarray(c))
-        a = np.concatenate(ys)
-        c = np.concatenate(yf)
-        np.testing.assert_allclose(c, a, atol=2e-3, rtol=0)
-        assert np.abs(a).max() > 0.1  # non-vacuous
+    rng = np.random.default_rng(11 + log2)
+    n = 4 << max(10, log2 + 6)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64) * 0.3
+    cs = dec.init_state(log2)
+    fs_ = dec.init_flat_state(log2)
+    block = n // 4
+    ys, yf = [], []
+    for b in range(4):
+        xb = jnp.asarray(x[b * block : (b + 1) * block])
+        cs, a = dec.decimate_cascade(cs, xb, log2, "cen")
+        fs_, c = dec.decimate_flat(fs_, xb, log2)
+        ys.append(np.asarray(a))
+        yf.append(np.asarray(c))
+    a = np.concatenate(ys)
+    c = np.concatenate(yf)
+    np.testing.assert_allclose(c, a, atol=2e-3, rtol=0)
+    assert np.abs(a).max() > 0.1  # non-vacuous
 
 
-def test_flat_rotated_matches_staged_inf_sup():
+@pytest.mark.parametrize("log2", [1, 2, 4, 6])
+@pytest.mark.parametrize("fc_pos", ["inf", "sup"])
+def test_flat_rotated_matches_staged_inf_sup(fc_pos, log2):
     """decimate_flat_any == staged cascade for inf/sup placements across
     block seams (input-modulated composed filter)."""
     from sdrangel_tpu.dsp import decimators as dec
 
-    rng = np.random.default_rng(3)
-    for fc_pos in ("inf", "sup"):
-        for log2 in (1, 2, 4, 6):
-            n = 4 << max(11, log2 + 7)
-            x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
-                np.complex64) * 0.3
-            cs = dec.init_state(log2)
-            fs_ = dec.init_flat_state(log2)
-            block = n // 4
-            ys, yf = [], []
-            for b in range(4):
-                xb = jnp.asarray(x[b * block : (b + 1) * block])
-                cs, a = dec.decimate_cascade(cs, xb, log2, fc_pos)
-                fs_, c = dec.decimate_flat_any(fs_, xb, log2, fc_pos)
-                ys.append(np.asarray(a))
-                yf.append(np.asarray(c))
-            a = np.concatenate(ys)
-            c = np.concatenate(yf)
-            assert np.abs(a).max() > 0.05
-            np.testing.assert_allclose(c, a, atol=3e-3, rtol=0,
-                                       err_msg=f"{fc_pos} /{1<<log2}")
+    rng = np.random.default_rng(3 + log2 + (fc_pos == "sup"))
+    n = 4 << max(11, log2 + 7)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64) * 0.3
+    cs = dec.init_state(log2)
+    fs_ = dec.init_flat_state(log2)
+    block = n // 4
+    ys, yf = [], []
+    for b in range(4):
+        xb = jnp.asarray(x[b * block : (b + 1) * block])
+        cs, a = dec.decimate_cascade(cs, xb, log2, fc_pos)
+        fs_, c = dec.decimate_flat_any(fs_, xb, log2, fc_pos)
+        ys.append(np.asarray(a))
+        yf.append(np.asarray(c))
+    a = np.concatenate(ys)
+    c = np.concatenate(yf)
+    assert np.abs(a).max() > 0.05
+    np.testing.assert_allclose(c, a, atol=3e-3, rtol=0,
+                               err_msg=f"{fc_pos} /{1<<log2}")
 
 
-def test_flat_iq_matches_flat_complex():
-    """The layout-native NWC form equals the complex-lane flat cascade
-    across block seams."""
+@pytest.mark.parametrize("log2", [1, 4, 6])
+def test_flat_iq_matches_flat_complex(log2):
+    """The layout-native NWC form equals the complex flat cascade across
+    block seams."""
     from sdrangel_tpu.dsp import decimators as dec
 
-    rng = np.random.default_rng(9)
-    for log2 in (1, 4, 6):
-        n = 4 << max(10, log2 + 6)
-        x = (rng.standard_normal((n, 2)) * 0.3).astype(np.float32)
-        xc = (x[:, 0] + 1j * x[:, 1]).astype(np.complex64)
-        sc = dec.init_flat_state(log2)
-        si = dec.init_flat_iq_state(log2)
-        block = n // 4
-        yc, yi = [], []
-        for b in range(4):
-            sc, a = dec.decimate_flat(sc, jnp.asarray(xc[b * block : (b + 1) * block]), log2)
-            si, c = dec.decimate_flat_iq(si, jnp.asarray(x[b * block : (b + 1) * block]), log2)
-            yc.append(np.asarray(a))
-            yi.append(np.asarray(c))
-        a = np.concatenate(yc)
-        c = np.concatenate(yi, axis=0)
-        np.testing.assert_allclose(c[:, 0], a.real, atol=1e-5, rtol=0)
-        np.testing.assert_allclose(c[:, 1], a.imag, atol=1e-5, rtol=0)
-        assert np.abs(a).max() > 0.05
+    rng = np.random.default_rng(9 + log2)
+    n = 4 << max(10, log2 + 6)
+    x = (rng.standard_normal((n, 2)) * 0.3).astype(np.float32)
+    xc = (x[:, 0] + 1j * x[:, 1]).astype(np.complex64)
+    sc = dec.init_flat_state(log2)
+    si = dec.init_flat_iq_state(log2)
+    block = n // 4
+    yc, yi = [], []
+    for b in range(4):
+        sc, a = dec.decimate_flat(sc, jnp.asarray(xc[b * block : (b + 1) * block]), log2)
+        si, c = dec.decimate_flat_iq(si, jnp.asarray(x[b * block : (b + 1) * block]), log2)
+        yc.append(np.asarray(a))
+        yi.append(np.asarray(c))
+    a = np.concatenate(yc)
+    c = np.concatenate(yi, axis=0)
+    np.testing.assert_allclose(c[:, 0], a.real, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(c[:, 1], a.imag, atol=1e-5, rtol=0)
+    assert np.abs(a).max() > 0.05

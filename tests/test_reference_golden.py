@@ -573,7 +573,7 @@ def test_nfm_stage_discriminator_matches_reference(name, bound):
     """Reference post-resampler tap through OUR discriminator vs the
     reference's post-discriminator tap. The ~38 dB floor is the
     REFERENCE's atan2_approximation2 (phasediscri.h — a scalar-CPU speed
-    hack; we use exact atan2 on the VPU), not a chain divergence. The
+    hack; we use exact atan2), not a chain divergence. The
     fitted scale pins the fmScaling convention ratio: reference
     8*audioRate/fmDev = 192 vs our unit-normalized audio_rate/(2*fm_dev)."""
     from sdrangel_tpu.dsp import phasediscri as rpd

@@ -1,6 +1,8 @@
 #!/usr/bin/env bash
-# End-to-end demo of the framework's surfaces. CPU-safe (forces the CPU
-# backend so it runs anywhere); on a real TPU deployment drop the JAX_CFG.
+# End-to-end demo of the framework's surfaces. Steps 1-4 force the CPU
+# backend so they run anywhere; step 5 (the GPU benchmark) runs only where
+# nvidia-smi finds a card, after the server process has exited (one
+# process per card).
 set -euo pipefail
 cd "$(dirname "$0")/.."
 TMP=$(mktemp -d)
@@ -10,7 +12,7 @@ import sys; sys.argv = ['sdrangel_tpu'] + '$*'.split('|')
 from sdrangel_tpu.__main__ import main; main()"; }
 
 echo '=== 1. Tx: modulate a CW-keyed NFM signal at +50 kHz into a capture ==='
-PY "mod|--channel|nfm:50000|--cw|cq cq de sdrangel tpu|--seconds|2|--out|$TMP/tx.sdriq"
+PY "mod|--channel|nfm:50000|--cw|cq cq de sdrangel|--seconds|2|--out|$TMP/tx.sdriq"
 
 echo '=== 2. inspect the capture ==='
 PY "info|--in|$TMP/tx.sdriq"
@@ -41,8 +43,13 @@ curl -s http://127.0.0.1:18095/sdrangel/deviceset/0/channel/0/audio -o "$TMP/htt
 ls -la "$TMP/http.wav"
 curl -s -X DELETE http://127.0.0.1:18095/sdrangel/deviceset/0/device/run > /dev/null
 kill $SRV 2>/dev/null || true
+wait $SRV 2>/dev/null || true
 
-echo '=== 5. benchmark (runs on TPU when available) ==='
-python bench.py
+echo '=== 5. benchmark (needs a GPU) ==='
+if nvidia-smi -L > /dev/null 2>&1; then
+  python bench.py
+else
+  echo 'no GPU found: benchmark skipped'
+fi
 
 echo "demo artifacts in $TMP"

@@ -2,9 +2,9 @@
 
 The reference validates its distributed path with two processes on one
 machine (SDRdaemon over localhost UDP — SURVEY.md §4 "multi-node without a
-cluster"); the TPU-native analog is two jax.distributed processes forming
-one global device mesh, each feeding its own mmap slice of the capture
-(parallel/hostfeed.py) — the same code path a real 2-host TPU slice runs.
+cluster"); the analog here is two jax.distributed processes forming one
+global device mesh, each feeding its own mmap slice of the capture
+(parallel/hostfeed.py) — the same code path a real 2-host mesh runs.
 
 Usage (launched n_processes times, e.g. by tests/test_multihost.py):
   python tools/multihost_worker.py --process-id I --num-processes N \

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Measure the ÷64 cascade's SNR vs the float64 NumPy oracle at the conv
-precision selected by SDRANGEL_TPU_CONV_PRECISION (read at import time).
+"""Measure the ÷64 flat cascade's SNR vs the float64 NumPy oracle at the
+DEFAULT, HIGH and HIGHEST conv precisions, on JAX's default device.
 
-Prints one JSON line {"precision": ..., "snr_db": ...}. Used by
-tests/test_precision_policy.py (subprocess per precision) and for manual
-A/B on hardware.
+Prints one JSON line {"default": dB, "high": dB, "highest": dB,
+"shipped": <the dsp/precision.py policy's name>}. Used by
+tests/test_precision_policy.py (in a child process) and for manual A/B:
+
+    python tools/precision_probe.py
 """
 
 import json
@@ -13,46 +15,17 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
-
 
 def main() -> int:
     import jax
 
-    if not os.environ.get("SDRANGEL_TPU_TEST_ON_TPU"):
-        jax.config.update("jax_platforms", "cpu")
-    import jax.numpy as jnp
+    from chip_smoke import flat_cascade_snr_db
+    from sdrangel_tpu.dsp.precision import PRECISION
 
-    from sdrangel_tpu.dsp import decimators as dec
-
-    rng = np.random.default_rng(11)
-    n = 1 << 18
-    t = np.arange(n)
-    x = (0.35 * np.exp(2j * np.pi * 0.00137 * t)
-         + 0.2 * np.exp(2j * np.pi * 0.00031 * t)
-         + 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n)))
-    x = x.astype(np.complex64)
-
-    def run(casc, xx):
-        casc, y = dec.decimate_flat_any(casc, xx, 6, "cen")
-        return casc, jnp.stack([jnp.real(y), jnp.imag(y)])
-
-    jrun = jax.jit(run)
-    casc = jax.jit(lambda: dec.init_flat_state(6))()
-    _, y2 = jrun(casc, jnp.asarray(x))
-    y2 = np.asarray(y2)
-    y = y2[0] + 1j * y2[1]
-
-    oracle = dec.decimate_reference_oracle(x.astype(np.complex128), 6, "cen")
-    m = min(len(y), len(oracle))
-    a, b = oracle[64:m], y[64:m]
-    s = np.vdot(b, a) / np.vdot(b, b)
-    err = a - s * b
-    snr = 10 * np.log10(abs(np.vdot(s * b, s * b)) / max(abs(np.vdot(err, err)), 1e-30))
-    print(json.dumps({
-        "precision": os.environ.get("SDRANGEL_TPU_CONV_PRECISION", "high"),
-        "snr_db": round(float(snr), 2),
-    }))
+    snrs = {p: round(flat_cascade_snr_db(jax.lax.Precision(p)), 2)
+            for p in ("default", "high", "highest")}
+    print(json.dumps({**snrs, "shipped": PRECISION.name.lower(),
+                      "platform": jax.devices()[0].platform}))
     return 0
 
 

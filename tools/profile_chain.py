@@ -37,8 +37,6 @@ offsets = np.array([
 plans = [chanmod.plan_channel(baseband_rate, req_band, o) for o in offsets]
 n_stages = len(plans[0].signs)
 signs = np.array([p.signs for p in plans])
-# numpy, NOT jnp: a closed-over device array degrades the whole process
-# into synchronous dispatch (see .claude/skills/verify/SKILL.md round 2)
 residual = np.asarray([p.residual_offset for p in plans], np.float32)
 chan_rate = plans[0].channel_rate
 

@@ -2,9 +2,9 @@
 
 Measures the (time × channel)-sharded NFM bank step (parallel/sharded.py) at
 1 device and at the full mesh, reporting samples/s and scaling efficiency —
-the BASELINE.md "≥85% 2-host scaling efficiency" procedure. On real TPU
-slices this reports honest numbers; on the CPU virtual mesh it validates
-execution and prints (meaningless) host timings clearly marked as such.
+the BASELINE.md "≥85% 2-host scaling efficiency" procedure. On GPUs it
+reports device numbers; on the CPU virtual mesh it validates execution
+and prints (meaningless) host timings clearly marked as such.
 
 Usage:
   python tools/scaling_bench.py [--devices N] [--channels C] [--block LOG2]
