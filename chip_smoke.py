@@ -52,27 +52,31 @@ INT16_SNR_DB = 98.1
 #: Tone SNR each served channel's audio must clear (the e2e tests' bar for
 #: a clean synthetic tone through a full demod chain is 20 dB).
 SERVED_TONE_SNR_DB = 20.0
-#: Agreement of the GPU audio with the CPU backend, as the power of the
-#: CPU audio over the power of the difference. Both compute in float32
+#: Agreement of the GPU output with the CPU backend, as the power of the
+#: CPU output over the power of the difference. Both compute in float32
 #: (HIGHEST precision), but in another summation order with other conv
 #: algorithms, so low bits differ; the FM discriminators turn IQ rounding
-#: into phase noise. 80 dB is far above that (float32 ~ 140 dB) and far
-#: below what a TF32 (10-bit mantissa) path would give.
-GEAR_AGREE_DB = 80.0
-#: The served path's WAVs hold int16: a last-bit flip of the float audio
-#: moves a sample by one LSB, so the same bound loses the int16 floor;
-#: 60 dB keeps a margin over one-LSB flips of a -20 dBFS tone.
-SERVED_AGREE_DB = 60.0
+#: into phase noise. On an H100 the gears read 117.4 (chainpfb), 120.4
+#: (decimateif) and 128.4 dB (chain64); with the policy at HIGH (TF32)
+#: decimateif reads 75.3 and chainpfb 88.6 dB (chain64 does not change:
+#: none of its dots or convs runs in TF32). 105 dB sits between the two.
+GEAR_AGREE_DB = 105.0
+#: The served path's WAVs hold int16, so the int16 rounding of the audio
+#: caps the agreement: on an H100 the four channels read 90.1-106.7 dB at
+#: HIGHEST, and 68.8-87.7 dB with the policy at HIGH (TF32), where AM, SSB
+#: and WFM fall below 80 dB and NFM does not.
+SERVED_AGREE_DB = 80.0
 
 # served-path channels: (uri, offset as a fraction of the baseband rate,
-# settings, tone Hz). NFM and AM sit at depth-1 channelizer plans, SSB and
-# WFM at depth 0 (their FFT hop then keeps the device block under 2^25 at
-# the 625/192 rate ratio of 10 MS/s ÷64).
+# settings, tone Hz). NFM and WFM sit at depth-1 channelizer plans, AM and
+# SSB at depth 0. WFM's FFT hop at a depth-1 plan and the 625/192 rate
+# ratio of 10 MS/s ÷64 make the solver pick a 40,960,000-sample device
+# block. WFM's 40 kHz band keeps clear of every other channel.
 SERVED_CHANNELS = (
     ("sdrangel.channel.nfmdemod", -0.32, {"squelch_db": -100.0}, 1000.0),
-    ("sdrangel.channel.amdemod", 0.32, {"squelch_db": -100.0}, 700.0),
+    ("sdrangel.channel.amdemod", 0.45, {"squelch_db": -100.0}, 700.0),
     ("sdrangel.channel.ssbdemod", -0.128, {}, 1200.0),
-    ("sdrangel.channel.wfmdemod", 0.128,
+    ("sdrangel.channel.wfmdemod", 0.18,
      {"rf_bandwidth": 40000.0, "fm_deviation": 10000.0,
       "squelch_db": -100.0}, 1500.0),
 )
@@ -168,7 +172,7 @@ def _run_until_idle(base: str, index: int, timeout_s: float) -> dict:
 
 
 def phase_served(rate: float = 10e6, log2_decim: int = 6, seconds: float = 2.2,
-                 n_blocks: int = 3, ref_device=None, out_dir: str = SCRATCH,
+                 n_blocks: int = 2, ref_device=None, out_dir: str = SCRATCH,
                  timeout_s: float = 900.0) -> dict:
     """Drive the REST server over HTTP through both file readers; returns
     the checked numbers. Raises AssertionError on a failed check."""
@@ -234,9 +238,13 @@ def phase_served(rate: float = 10e6, log2_decim: int = 6, seconds: float = 2.2,
     ref = [np.clip(np.concatenate(p) * 32768.0, -32768, 32767).astype(np.int16)
            for p in parts]
 
-    result = {"block_s": round(pipe.device_block / rate, 3),
+    result = {"device_block": pipe.device_block,
+              "block_s": round(pipe.device_block / rate, 3),
               "stream_s": round(blocks_s[False], 1),
               "preload_s": round(blocks_s[True], 1)}
+    stats = jax.devices()[0].memory_stats()  # None on the CPU backend
+    if stats and "peak_bytes_in_use" in stats:
+        result["peak_gb"] = round(stats["peak_bytes_in_use"] / 2**30, 2)
     for i, (uri, _, _, tone) in enumerate(SERVED_CHANNELS):
         kind = uri.rsplit(".", 1)[-1]
         a_s, a_p = audio[False][i], audio[True][i]
@@ -357,6 +365,7 @@ def phase_goldens() -> dict:
     count = Count()
     rc = pytest.main(
         ["-q", "-o", "addopts=", "--noconftest", "-p", "no:cacheprovider",
+         "--durations=8",
          "--rootdir", REPO,
          os.path.join(REPO, "tests", "test_reference_golden.py")],
         plugins=[count])

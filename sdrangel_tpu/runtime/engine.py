@@ -29,6 +29,18 @@ from ..dsp import decimators as dec
 from ..dsp import spectrum as dsp_spectrum
 from . import corrections
 
+#: Largest device block (input samples per step) the block solver accepts.
+#: A step holds a few float32 copies of its block: the int16 input, the
+#: f32 [re, im] lanes of the flat conv (a pure reshape), the corrections'
+#: output; the channel bank works at baseband, 2^k times smaller. On an
+#: H100 the 10 MS/s ÷64 four-demod session peaked at 0.82 GiB of device
+#: memory with a 40,960,000-sample block (about 21 bytes per sample), so
+#: 2^28 samples stay near 6 GiB, while the block's f32 planes
+#: (2·2^28 elements) stay inside 32-bit indexing. The bound only refuses
+#: plans whose rational rate factors blow the block up; it does not set
+#: the block, which is the smallest that satisfies every channel.
+MAX_DEVICE_BLOCK = 1 << 28
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DeviceConfig:
@@ -135,7 +147,7 @@ class RxPipeline:
         target = requested or (1 << 17)
         while block < target:
             block *= 2
-        if (block << self.device.log2_decim) > (1 << 25):
+        if (block << self.device.log2_decim) > MAX_DEVICE_BLOCK:
             raise ValueError(
                 f"block of {block << self.device.log2_decim} device samples "
                 f"needed to satisfy rate divisibility — pick rates with "

@@ -207,6 +207,37 @@ def test_sdriq_24bit_roundtrip(tmp_path):
     np.testing.assert_allclose(back, iq, atol=1.5 / 8388608.0)  # 24-bit LSB
 
 
+def _served_bank(wfm_frac):
+    """10 MS/s ÷64 with NFM, AM, SSB and WFM (WFM at the given fraction of
+    the baseband rate); building the pipeline solves its block, no compile."""
+    bb = 10e6 / 64
+    return RxPipeline(DeviceConfig(sample_rate=10e6, log2_decim=6), [
+        ChannelSpec("sdrangel.channel.nfmdemod", -0.32 * bb, {}),
+        ChannelSpec("sdrangel.channel.amdemod", 0.45 * bb, {}),
+        ChannelSpec("sdrangel.channel.ssbdemod", -0.128 * bb, {}),
+        ChannelSpec("sdrangel.channel.wfmdemod", wfm_frac * bb,
+                    {"rf_bandwidth": 40000.0, "fm_deviation": 10000.0}),
+    ])
+
+
+@pytest.mark.parametrize("wfm_frac,depth,device_block", [
+    (0.128, 0, 20_480_000),  # WFM's FFT hop at channel rate 156.25 kHz
+    (0.18, 1, 40_960_000),   # ... at 78.125 kHz: twice the block
+])
+def test_block_solver_fft_hop_depth(wfm_frac, depth, device_block):
+    pipe = _served_bank(wfm_frac)
+    assert len(pipe.plans[3].signs) == depth
+    assert pipe.device_block == device_block
+
+
+def test_block_solver_refuses_above_cap(monkeypatch):
+    from sdrangel_tpu.runtime import engine
+
+    monkeypatch.setattr(engine, "MAX_DEVICE_BLOCK", 1 << 25)
+    with pytest.raises(ValueError, match="40960000 device samples"):
+        _served_bank(0.18)
+
+
 def test_bfm_through_engine():
     """BFM attached via the engine (REST path) builds and runs — its internal
     RDS/mono resampler divisibility is honored by the block solver."""
